@@ -1,24 +1,28 @@
-"""A/B the descriptor sampling modes on the real TPU.
+"""A/B the descriptor sampling modes on the GPU.
 
 Times the FULL production sift_extract program (4-image bench batches)
 under descr_mode='grid' (rotated 16x16 bilinear sample grid, the
 vectorized-SIFT standard) vs 'dense' (cv2's exact integer-window
 semantics, calcSIFTDescriptor — what the reference runs via
-features.py:192-201). Quality companion: ab_real_quality.py with a 4th
+features.py:192-201). Quality companion: ab_real_quality.py with a 2nd
 argv of grid,dense.
 
 Run: python benchmarks/ab_descr.py [modes]
 """
 import json
+import os
 import sys
 
-from ab_gauss import t  # noqa: F401  (shared timing helpers)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
-import numpy as np
+from benchmarks.profile_sift import t  # noqa: E402  (timing helper)
+
+import numpy as np  # noqa: E402
 import jax
 
-from benchmarks.measure_baseline import bench_dataset
-from pano360_tpu.features import sift as S
+from pano360.synth import bench_dataset
+from pano360.features import sift as S
 
 
 def main():

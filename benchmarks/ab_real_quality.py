@@ -1,24 +1,12 @@
 """A/B SIFT front-end knobs on the real-texture world (our side only).
 
-REAL_IMAGE.json recorded ours 38.75 dB vs the reference's 41.31 dB
-against each side's own ground-truth-camera mosaic — both place 8/8
-with ~0.06 deg mean rotation error, so the gap is in the tail of our
-registration errors (max rel-rot 0.146 vs 0.098 deg). Two front-end
-suspects, both introduced for speed with quality gates run only on the
-value-noise world:
-
-  patch_dtype='bfloat16' (round-4 default) — descriptor quantization
-  cand_topk='approx' (lax.approx_max_k, ~2% weakest-candidate loss)
-
-This harness sweeps the 2x2 grid on the real-texture world and prints
-registration errors + vs-GT mosaic PSNR per cell. Run:
+Sweeps ``patch_dtype`` (float32 default vs the bfloat16 opt-in, which
+quantizes the descriptor patches) and ``descr_mode`` (the rotated grid
+sampler vs cv2-exact dense windows) and prints registration errors +
+vs-ground-truth mosaic PSNR per cell. Run:
     python benchmarks/ab_real_quality.py
 Optional argv override the swept values (comma lists):
-    python benchmarks/ab_real_quality.py float32 approx incremental,pallas
-sweeps gauss_mode at the production patch_dtype/cand_topk (the gate
-used before flipping the fused Pallas octave kernel default), and a
-4th argv sweeps descr_mode (grid vs cv2-exact dense):
-    python benchmarks/ab_real_quality.py float32 exact pallas grid,dense
+    python benchmarks/ab_real_quality.py float32 grid,dense
 """
 import json
 import os
@@ -34,11 +22,11 @@ from benchmarks.real_image import real_world_texture  # noqa
 
 
 def main():
-    from pano360_tpu import render, synth
-    from pano360_tpu.pipeline import matching, idx_to_keypoints, to_device
-    from pano360_tpu.register import traverse, PanoImage
-    from pano360_tpu.features import sift as S
-    import pano360_tpu.pipeline as pl
+    from pano360 import render, synth
+    from pano360.pipeline import matching, idx_to_keypoints, to_device
+    from pano360.register import traverse, PanoImage
+    from pano360.features import sift as S
+    import pano360.pipeline as pl
 
     tex = real_world_texture()
     views, rots_gt, focal_gt = synth.make_views(
@@ -57,39 +45,28 @@ def main():
 
     dtypes = (sys.argv[1].split(",") if len(sys.argv) > 1
               else ("bfloat16", "float32"))
-    cands = (sys.argv[2].split(",") if len(sys.argv) > 2
-             else ("approx", "exact"))
-    gmodes = (sys.argv[3].split(",") if len(sys.argv) > 3
-              else ("incremental",))
-    dmodes = (sys.argv[4].split(",") if len(sys.argv) > 4
+    dmodes = (sys.argv[2].split(",") if len(sys.argv) > 2
               else ("grid",))
     out = {}
     for patch_dtype in dtypes:
-        for cand in cands:
-            for gmode, dmode in [(g, dm) for g in gmodes for dm in dmodes]:
-                cfg = S.SiftConfig(patch_dtype=patch_dtype, cand_topk=cand,
-                                   gauss_mode=gmode, descr_mode=dmode)
-                feats = pl._gray_extract(dev, cfg)
-                kpts, matches = matching(imgs, seed=0, dev_images=dev,
-                                         feats=feats)
-                regs = traverse(imgs, idx_to_keypoints(matches, kpts),
-                                badjust="incr")
-                m_ours = render.stitch(regs, blender="multiband",
-                                       dev_images=dev)
-                errs = reg_errors(regs, rots_gt, focal_gt)
-                gt_ours = [PanoImage(im.copy(), r.copy(), intr_gt.copy())
-                           for im, r in zip(
-                               imgs, align_gt([r.rot for r in regs]))]
-                m_gt = render.stitch(gt_ours, blender="multiband")
-                p, *_ = psnr_subpixel(m_ours, m_gt)
-                key = f"{patch_dtype}/{cand}"
-                if len(gmodes) > 1 or gmode != "incremental":
-                    key += f"/{gmode}"
-                if len(dmodes) > 1 or dmode != "grid":
-                    key += f"/{dmode}"
-                out[key] = {"placed": len(regs), "vs_gt_db": round(p, 2),
-                            **errs}
-                print(key, json.dumps(out[key]), flush=True)
+        for dmode in dmodes:
+            cfg = S.SiftConfig(patch_dtype=patch_dtype, descr_mode=dmode)
+            feats = pl._gray_extract(dev, cfg)
+            kpts, matches = matching(imgs, seed=0, dev_images=dev,
+                                     feats=feats)
+            regs = traverse(imgs, idx_to_keypoints(matches, kpts),
+                            badjust="incr")
+            m_ours = render.stitch(regs, blender="multiband",
+                                   dev_images=dev)
+            errs = reg_errors(regs, rots_gt, focal_gt)
+            gt_ours = [PanoImage(im.copy(), r.copy(), intr_gt.copy())
+                       for im, r in zip(
+                           imgs, align_gt([r.rot for r in regs]))]
+            m_gt = render.stitch(gt_ours, blender="multiband")
+            p, *_ = psnr_subpixel(m_ours, m_gt)
+            key = f"{patch_dtype}/{dmode}"
+            out[key] = {"placed": len(regs), "vs_gt_db": p, **errs}
+            print(key, json.dumps(out[key]), flush=True)
     print(json.dumps(out))
 
 

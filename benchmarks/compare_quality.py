@@ -29,7 +29,7 @@ if not hasattr(np, "object"):
     np.object = object
 sys.path.insert(0, "/root/reference")
 
-from benchmarks.measure_baseline import bench_dataset  # noqa: E402
+from pano360.synth import bench_dataset  # noqa: E402
 
 
 def psnr(a, b):
@@ -143,9 +143,9 @@ def main():
     import stitcher as ref_st
     import bundle_adj as ref_ba
 
-    from pano360_tpu.pipeline import matching, idx_to_keypoints, to_device
-    from pano360_tpu.register import traverse, PanoImage
-    from pano360_tpu import render
+    from pano360.pipeline import matching, idx_to_keypoints, to_device
+    from pano360.register import traverse, PanoImage
+    from pano360 import render
 
     imgs, rots_gt, focal_gt = bench_dataset()
     out = {}

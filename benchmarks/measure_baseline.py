@@ -1,51 +1,32 @@
 """Measure the CPU reference pipeline on the benchmark dataset.
 
 The reference repo publishes no numbers (BASELINE.md), so the baseline is
-measured by running /root/reference end-to-end (SIFT+FLANN+RANSAC matching,
-incremental LM bundle adjustment, multiband render) on the same synthetic
-dataset bench.py uses. Results land in BASELINE_MEASURED.json next to the
-repo root.
+measured by running the reference end-to-end (SIFT+FLANN+RANSAC matching,
+incremental LM bundle adjustment, multiband render) on the host CPU, on the
+same synthetic dataset bench.py uses (``synth.bench_dataset``). Results land
+in BASELINE_MEASURED.json next to the repo root.
 
-Run: python benchmarks/measure_baseline.py
+Run: PANO360_REFERENCE=<reference checkout> python benchmarks/measure_baseline.py
 """
 import json
 import os
 import sys
 import time
-import types
-
-import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-# reference import shims (old cv2/numpy APIs)
-import cv2
-if not hasattr(cv2, "xfeatures2d"):
-    cv2.xfeatures2d = types.SimpleNamespace(SIFT_create=cv2.SIFT_create)
-if "object" not in np.__dict__:
-    np.object = object
-sys.path.insert(0, "/root/reference")
-
-from pano360_tpu import synth  # noqa: E402
-
-BENCH_SEED = 42
-BENCH_VIEWS = 15
-BENCH_SHAPE = (864, 1152)   # ~1 Mpix per view, CMU2-like scale
-BENCH_OVERLAP = 0.45
-
-
-def bench_dataset():
-    imgs, rots, focal = synth.make_views(
-        n_views=BENCH_VIEWS, shape=BENCH_SHAPE, overlap=BENCH_OVERLAP,
-        seed=BENCH_SEED)
-    return [(im * 255).astype(np.uint8) for im in imgs], rots, focal
+from pano360.synth import (  # noqa: E402
+    BENCH_OVERLAP, BENCH_SEED, BENCH_SHAPE, BENCH_VIEWS, bench_dataset)
+from refcompat import load_reference  # noqa: E402
 
 
 def main():
-    import features as ref_feat
-    import stitcher as ref_st
-    import bundle_adj as ref_ba
+    reference = load_reference(os.environ["PANO360_REFERENCE"])
+    ref_feat = reference("features")
+    ref_st = reference("stitcher")
+    ref_ba = reference("bundle_adj")
 
     imgs, _, _ = bench_dataset()
     print(f"dataset: {len(imgs)} views of {imgs[0].shape}", flush=True)
@@ -82,9 +63,6 @@ def main():
     with open(path, "w") as fid:
         json.dump(out, fid, indent=2)
     print(json.dumps(out))
-    # save the reference mosaic as the golden for PSNR comparison
-    cv2.imwrite(os.path.join(ROOT, "benchmarks", "golden_mosaic.png"),
-                mosaic)
 
 
 if __name__ == "__main__":

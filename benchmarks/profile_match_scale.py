@@ -1,6 +1,6 @@
-"""Attribute the 50-view x 2.2-Mpix "match" stage (SCALE.json row 2).
+"""Attribute the "match" stage at 50 views x 2.2 Mpix.
 
-SCALE.json's match_s lumps upload_extract + host prep + the match
+An end-to-end match time lumps upload_extract + host prep + the match
 dispatch + result readback. This splits them and further splits the
 match dispatch into its substages (knn2 top-2, RANSAC hypotheses,
 refit) so optimization targets the real cost, not the label.
@@ -15,17 +15,15 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
 
 import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from pano360_tpu import synth  # noqa: E402
-from pano360_tpu.pipeline import upload_extract, _compact_buffers_dev  # noqa: E402
-from pano360_tpu import match as pm  # noqa: E402
-from pano360_tpu.features import sift as S  # noqa: E402
+from pano360 import synth  # noqa: E402
+from pano360.pipeline import upload_extract, _compact_buffers_dev  # noqa: E402
+from pano360 import match as pm  # noqa: E402
+from pano360.features import sift as S  # noqa: E402
 
 SHAPE = (1296, 1728)
 
@@ -110,7 +108,7 @@ def main():
     t("match dispatch + naive 5-pull readback",
       lambda: jax.tree_util.tree_map(np.asarray, full()))
 
-    from pano360_tpu.pipeline import (_pack_match_results,
+    from pano360.pipeline import (_pack_match_results,
                                       _unpack_match_results)
     t("match dispatch + packed readback (production)",
       lambda: _unpack_match_results(

@@ -1,4 +1,4 @@
-"""Substage profile of matching() and render.stitch() on the real TPU.
+"""Substage profile of matching() and render.stitch() on the GPU.
 
 Separates device compute from host assembly / dispatch+sync latency.
 
@@ -15,14 +15,14 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from benchmarks.measure_baseline import bench_dataset  # noqa: E402
-from pano360_tpu.pipeline import (matching, idx_to_keypoints,  # noqa: E402
+from pano360.synth import bench_dataset  # noqa: E402
+from pano360.pipeline import (matching, idx_to_keypoints,  # noqa: E402
                                   upload_extract)
-from pano360_tpu import match as pm  # noqa: E402
-from pano360_tpu.features import sift as S  # noqa: E402
-from pano360_tpu.register import traverse  # noqa: E402
-from pano360_tpu import render  # noqa: E402
-from pano360_tpu import geometry as geo  # noqa: E402
+from pano360 import match as pm  # noqa: E402
+from pano360.features import sift as S  # noqa: E402
+from pano360.register import traverse  # noqa: E402
+from pano360 import render  # noqa: E402
+from pano360 import geometry as geo  # noqa: E402
 
 
 def force(out):
@@ -65,7 +65,7 @@ def main():
     print(f"  counts: max={counts.max()} mean={counts.mean():.0f} "
           f"cap={kp_buf.shape[1]}", flush=True)
 
-    from pano360_tpu.pipeline import _compact_buffers
+    from pano360.pipeline import _compact_buffers
     cmax = int(counts.max())
     ccap = max(64, 1 << max(cmax - 1, 0).bit_length())
     sel = np.zeros((n, ccap), np.int32)

@@ -1,4 +1,4 @@
-"""Substage profile of the per-pair matcher on the real TPU.
+"""Substage profile of the per-pair matcher on the GPU.
 
 Splits match_all_pairs (the 0.33-0.35 s matching dispatch) into its
 algorithmic substages by timing truncated programs over the same 105
@@ -22,10 +22,10 @@ import numpy as np  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from benchmarks.measure_baseline import bench_dataset  # noqa: E402
-from pano360_tpu.pipeline import upload_extract, _compact_buffers  # noqa: E402
-from pano360_tpu import match as pm  # noqa: E402
-from pano360_tpu.features import sift as S  # noqa: E402
+from pano360.synth import bench_dataset  # noqa: E402
+from pano360.pipeline import upload_extract, _compact_buffers  # noqa: E402
+from pano360 import match as pm  # noqa: E402
+from pano360.features import sift as S  # noqa: E402
 
 
 def force(out):

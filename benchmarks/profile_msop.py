@@ -1,7 +1,6 @@
-"""Per-stage profile of the MSOP extraction path on the real TPU.
+"""Per-stage profile of the MSOP extraction path on the GPU.
 
-The MSOP config is the slowest steady config (CONFIGS.json) and the
-reference's per-level loop maps to: one batched candidate dispatch per
+The reference's per-level MSOP loop maps to: one batched candidate dispatch per
 pyramid level, a (n, cap)-sized candidate readback per level for the
 host-side SSC suppression, SSC itself, and one batched descriptor
 dispatch per level. This splits the wall time across those pieces so
@@ -20,8 +19,8 @@ sys.path.insert(0, ROOT)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from pano360_tpu import synth  # noqa: E402
-from pano360_tpu.features import msop as M  # noqa: E402
+from pano360 import synth  # noqa: E402
+from pano360.features import msop as M  # noqa: E402
 
 
 def main():

@@ -1,8 +1,8 @@
-"""Attribute traverse cost at the 50-view scale point (SCALE.json row 2).
+"""Attribute traverse cost at 50 views x 2.2 Mpix.
 
-traverse_s grows 0.19 -> 1.04 s from 25 to 50 views; this probe splits
-the warm 50-view dispatch into its parts by toggling the schedule knobs
-(same dataset as measure_scale.py):
+The per-add LM grows super-linearly with the view count; this probe
+splits the warm 50-view dispatch into its parts by toggling the schedule
+knobs:
 
   badjust='none'                 seeding + gating scan only
   badjust='incr', polish=False   + one full-problem LM per add (the
@@ -20,14 +20,12 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.expanduser("~/.cache/jax_comp"))
 
 import numpy as np  # noqa: E402
 
-from pano360_tpu import synth  # noqa: E402
-from pano360_tpu.pipeline import matching, idx_to_keypoints  # noqa: E402
-from pano360_tpu.register import traverse  # noqa: E402
+from pano360 import synth  # noqa: E402
+from pano360.pipeline import matching, idx_to_keypoints  # noqa: E402
+from pano360.register import traverse  # noqa: E402
 
 SHAPE = (1296, 1728)
 N_VIEWS = int(os.environ.get("N_VIEWS", "50"))

@@ -127,9 +127,9 @@ def main():
     import stitcher as ref_st
     import bundle_adj as ref_ba
 
-    from pano360_tpu import render, synth
-    from pano360_tpu.pipeline import matching, idx_to_keypoints, to_device
-    from pano360_tpu.register import traverse, PanoImage
+    from pano360 import render, synth
+    from pano360.pipeline import matching, idx_to_keypoints, to_device
+    from pano360.register import traverse, PanoImage
 
     tex = real_world_texture()
     views, rots_gt, focal_gt = synth.make_views(

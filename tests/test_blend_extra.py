@@ -5,12 +5,8 @@ import pytest
 
 pytestmark = pytest.mark.slow  # compile-heavy; fast subset: -m 'not slow'
 
-import refcompat  # noqa: F401
-import blend as ref_blend
-import bundle_adj as ref_ba
-
-from pano360_tpu import blend_extra, synth, viz
-from pano360_tpu.native import seam_flood, _seam_flood_py
+from pano360 import blend_extra, synth, viz
+from pano360.native import seam_flood, _seam_flood_py
 
 RNG = np.random.default_rng(41)
 
@@ -28,7 +24,9 @@ def two_views():
 
 
 class TestWarp:
-    def test_matches_reference_warp(self, two_views):
+    def test_matches_reference_warp(self, two_views, reference):
+        ref_ba = reference("bundle_adj")
+        ref_blend = reference("blend")
         imgs, focal = two_views
         kint = ref_ba.intrinsics(focal, (80, 60))
         ours = blend_extra.warp(imgs[0], kint)
@@ -84,7 +82,8 @@ class TestGraphCut:
 
 
 class TestLaplacian:
-    def test_matches_reference(self):
+    def test_matches_reference(self, reference):
+        ref_blend = reference("blend")
         a = RNG.integers(0, 255, (64, 64, 3)).astype(np.uint8)
         b = RNG.integers(0, 255, (64, 64, 3)).astype(np.uint8)
         ours = blend_extra.laplacian_blending(a, b, n_levels=4)
@@ -94,7 +93,8 @@ class TestLaplacian:
 
 
 class TestPoisson:
-    def test_matches_reference_solver(self):
+    def test_matches_reference_solver(self, reference):
+        ref_blend = reference("blend")
         src = RNG.integers(0, 255, (40, 48, 3)).astype(np.uint8)
         tgt = RNG.integers(0, 255, (40, 48, 3)).astype(np.uint8)
         mask = np.zeros((40, 48), np.uint8)
@@ -107,8 +107,9 @@ class TestPoisson:
         outside = mask == 0
         npt.assert_array_equal(ours[outside], tgt[outside])
 
-    def test_curved_source_matches_reference(self):
+    def test_curved_source_matches_reference(self, reference):
         """Non-zero-Laplacian source: CG equals the sparse direct solve."""
+        ref_blend = reference("blend")
         yy = np.linspace(-1, 1, 30)
         quad = (100 + 100 * np.outer(yy ** 2, np.ones(30)))
         src = np.repeat(quad.astype(np.uint8)[..., None], 3, axis=2)

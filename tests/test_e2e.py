@@ -7,8 +7,8 @@ import pytest
 
 pytestmark = pytest.mark.slow  # compile-heavy; fast subset: -m 'not slow'
 
-from pano360_tpu import synth
-from pano360_tpu.cli import build_parser, run
+from pano360 import synth
+from pano360.cli import build_parser, run
 
 
 @pytest.fixture(scope="module")
@@ -150,14 +150,14 @@ class TestEndToEnd:
         assert psnr >= 50.0, f"--mesh mosaic diverged: {psnr:.1f} dB"
 
     def test_flag_combo_equalize_crop_warp_maxres(self, dataset):
-        """CLI wiring for -e, -c, --seed, --warp and --max-resolution in
-        one run (reference flags stitcher.py:390-410 + our extensions):
-        reuses the fixture caches, so only the render stage recomputes."""
+        """CLI wiring for -e, -c, --seed and --max-resolution in one run
+        (reference flags stitcher.py:390-410 + our extensions): reuses
+        the fixture caches, so only the render stage recomputes."""
         ds, root, *_ = dataset
         args = build_parser().parse_args(
             [ds, "-s", "1", "--ba", "incr", "-b", "linear",
              "--cache-dir", root, "-e", "-c", "--seed", "5",
-             "--warp", "xla", "--max-resolution", "500"])
+             "--max-resolution", "500"])
         mosaic = run(args)
         assert mosaic.dtype == np.uint8 and mosaic.ndim == 3
         # crop: every border row/column keeps some valid content
@@ -196,7 +196,7 @@ class TestEndToEnd:
         reference's match_images one-shot check)."""
         ds, *_ = dataset
         monkeypatch.chdir(tmp_path)
-        from pano360_tpu.features_cli import main as fmain
+        from pano360.features_cli import main as fmain
         fmain(["--path", ds, "--visualize", "0", "1"])
         name = os.path.basename(ds)
         assert os.path.exists(f"matches_{name}.npz")
@@ -210,7 +210,7 @@ class TestEndToEnd:
         args = build_parser().parse_args(
             [ds, "-s", "1", "--ba", "incr", "-b", "linear",
              "--cache-dir", root, "--profile", "--trace-dir", str(trace)])
-        from pano360_tpu.cli import main
+        from pano360.cli import main
         main([ds, "-s", "1", "--ba", "incr", "-b", "linear",
               "--cache-dir", root, "--profile", "--trace-dir", str(trace)])
         out = capsys.readouterr().out

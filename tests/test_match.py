@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pano360_tpu import match as pm
+from pano360 import match as pm
 
 RNG = np.random.default_rng(11)
 
@@ -231,7 +231,7 @@ class TestPackedReadback:
     bitpacked inlier mask, bitcast homographies."""
 
     def test_roundtrip_exact(self):
-        from pano360_tpu.pipeline import (_pack_match_results,
+        from pano360.pipeline import (_pack_match_results,
                                           _unpack_match_results)
         rng = np.random.default_rng(11)
         p, m = 7, 64

@@ -4,11 +4,11 @@ import pytest
 
 pytestmark = pytest.mark.slow  # compile-heavy; fast subset: -m 'not slow'
 
-from pano360_tpu import synth
-from pano360_tpu.features.msop import (msop_extract_batch,
+from pano360 import synth
+from pano360.features.msop import (msop_extract_batch,
                                        msop_extract_device,
                                        msop_extract_host, ssc)
-from pano360_tpu.cli import build_parser, run
+from pano360.cli import build_parser, run
 
 
 class TestMsop:
@@ -63,8 +63,8 @@ class TestMsop:
         batch-vs-single comparison cannot see it."""
         import jax
         import jax.numpy as jnp
-        from pano360_tpu import match as pm
-        from pano360_tpu.geometry import focal_from_hom
+        from pano360 import match as pm
+        from pano360.geometry import focal_from_hom
 
         shape = (240, 320)
         imgs, rots, focal = synth.make_views(n_views=2, shape=shape,

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import pytest
 import scipy.ndimage as ndi
 
-from pano360_tpu import ops
+from pano360 import ops
 
 RNG = np.random.default_rng(7)
 

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pano360_tpu import synth
-from pano360_tpu import register as R
-from pano360_tpu.features import sift as S
-from pano360_tpu.parallel import (make_mesh, sharded_extract,
+from pano360 import synth
+from pano360 import register as R
+from pano360.features import sift as S
+from pano360.parallel import (make_mesh, sharded_extract,
                                   distributed_lm_stats)
 
 pytestmark = [
@@ -70,9 +70,9 @@ class TestParallel:
         the single-device run of the SAME production functions (the
         ``--mesh`` CLI path; also exercised at 8 devices by
         ``__graft_entry__.dryrun_multichip`` every driver round)."""
-        from pano360_tpu import render, synth
-        from pano360_tpu.pipeline import idx_to_keypoints, matching
-        from pano360_tpu.register import traverse
+        from pano360 import render, synth
+        from pano360.pipeline import idx_to_keypoints, matching
+        from pano360.register import traverse
 
         imgs, _, _ = synth.make_views(n_views=4, shape=(64, 96),
                                       overlap=0.5, seed=0)
@@ -81,8 +81,8 @@ class TestParallel:
 
         kpts_m, matches_m = matching(imgs, max_kpts=256, seed=0, mesh=mesh)
         kpts_s, matches_s = matching(imgs, max_kpts=256, seed=0)
-        # features and the match graph are bit-identical: the sharded
-        # program runs the same per-pair kernel, just partitioned
+        # features and the match graph are bit-identical: every image
+        # batch and pair chunk runs the same compiled program on its device
         for a, b in zip(kpts_m, kpts_s):
             npt.assert_array_equal(a, b)
         mm, ms = matches_m.item(), matches_s.item()
@@ -120,7 +120,7 @@ class TestParallel:
         60 deg fov at 0.2 overlap span 444 deg > 360, so crossing
         patches exercise the modular fold under shard_map — the
         wrap x mesh interaction no other mesh test reaches."""
-        from pano360_tpu import render
+        from pano360 import render
 
         imgs, rots, focal = synth.make_views(
             n_views=9, shape=(120, 160), seed=5, fov_deg=60.0,
@@ -147,7 +147,7 @@ class TestParallel:
     def test_mixed_shape_mesh_matching_parity(self):
         """Mixed image shapes shard per shape bucket; features and the
         match graph must be bit-identical to the single-device run."""
-        from pano360_tpu.pipeline import matching
+        from pano360.pipeline import matching
 
         imgs, _, _ = synth.make_views(n_views=4, shape=(64, 96),
                                       overlap=0.5, seed=2)
@@ -172,7 +172,7 @@ class TestParallel:
         """MSOP extraction shards its candidate/descriptor dispatches
         over the image axis; per-image programs are independent, so the
         mesh run must reproduce the single-device features."""
-        from pano360_tpu.pipeline import matching
+        from pano360.pipeline import matching
 
         imgs, _, _ = synth.make_views(n_views=4, shape=(64, 96),
                                       overlap=0.6, seed=3)
@@ -192,8 +192,8 @@ class TestParallel:
         trailing all-masked groups; the left-fold reduction makes them
         bit-exact no-ops, so a 3-device traverse must reproduce the
         single-device trajectory."""
-        from pano360_tpu.pipeline import idx_to_keypoints, matching
-        from pano360_tpu.register import traverse
+        from pano360.pipeline import idx_to_keypoints, matching
+        from pano360.register import traverse
 
         imgs, _, _ = synth.make_views(n_views=4, shape=(64, 96),
                                       overlap=0.5, seed=0)
@@ -209,6 +209,5 @@ class TestParallel:
             npt.assert_allclose(a.rot, b.rot, atol=5e-5)
             npt.assert_allclose(a.intr[0, 0], b.intr[0, 0], rtol=1e-4)
 
-    # NOTE: the 8-device version of the production pipeline (plus the
-    # distributed_step building-block demo) is exercised by
-    # __graft_entry__.dryrun_multichip, which the driver runs every round.
+    # NOTE: the 8-device version of the production pipeline is exercised
+    # by __graft_entry__.dryrun_multichip (pano360.parallel.dryrun).

@@ -5,11 +5,8 @@ import numpy.testing as npt
 import jax.numpy as jnp
 import pytest
 
-import refcompat  # noqa: F401
-import bundle_adj as ref_ba
-
-from pano360_tpu import register as R
-from pano360_tpu import geometry as geo
+from pano360 import register as R
+from pano360 import geometry as geo
 
 RNG = np.random.default_rng(21)
 
@@ -41,8 +38,9 @@ def synthetic_problem(n_cams=4, n_pts=60, focal=900.0, noise=0.3, seed=3):
 
 
 class TestJacobianParity:
-    def test_jtj_matches_reference(self):
+    def test_jtj_matches_reference(self, reference):
         """Our AD-based normal equations == reference symbolic Jacobian."""
+        ref_ba = reference("bundle_adj")
         cams, matches, _ = synthetic_problem(n_cams=3, n_pts=20)
         ref_cams = [ref_ba.Image(None, c.rot, c.intr) for c in cams]
         edges = [(1, 0, matches[0][1][0]), (2, 1, matches[1][2][0])]
@@ -128,8 +126,9 @@ class TestTraverse:
                                                -1, 1)))
             assert ang < 1.0
 
-    def test_parity_with_reference_traverse(self):
+    def test_parity_with_reference_traverse(self, reference):
         """Same matches dict through ours and the reference's traverse."""
+        ref_ba = reference("bundle_adj")
         _, matches, focal = synthetic_problem(noise=0.3, seed=5)
         imgs = [np.zeros((8, 8, 3))] * 4
         ours = R.traverse(imgs, matches, badjust="incr")

@@ -5,13 +5,9 @@ import numpy.testing as npt
 import jax.numpy as jnp
 import pytest
 
-import refcompat  # noqa: F401
-import stitcher as ref_st
-import bundle_adj as ref_ba
-
-from pano360_tpu import render, synth
-from pano360_tpu.register import PanoImage
-from pano360_tpu import native
+from pano360 import render, synth
+from pano360.register import PanoImage
+from pano360 import native
 
 RNG = np.random.default_rng(31)
 
@@ -20,12 +16,14 @@ def make_regions(n_views=4, shape=(160, 200), seed=3, overlap=0.45):
     imgs, rots, focal = synth.make_views(n_views=n_views, shape=shape,
                                          overlap=overlap, seed=seed)
     intr = np.diag([focal, focal, 1.0])
-    ours = [PanoImage((im * 255).astype(np.uint8), r.copy(), intr.copy())
+    return [PanoImage((im * 255).astype(np.uint8), r.copy(), intr.copy())
             for im, r in zip(imgs, rots)]
-    theirs = [ref_ba.Image((im * 255).astype(np.uint8), r.copy(),
-                           intr.copy())
-              for im, r in zip(imgs, rots)]
-    return ours, theirs
+
+
+def reference_regions(ref_ba, ours):
+    """The reference's ``Image`` objects for the same views."""
+    return [ref_ba.Image(r.img.copy(), r.rot.copy(), r.intr.copy())
+            for r in ours]
 
 
 def psnr(a, b):
@@ -34,8 +32,10 @@ def psnr(a, b):
 
 
 class TestUnits:
-    def test_range_border_matches_reference(self):
-        ours, theirs = make_regions()
+    def test_range_border_matches_reference(self, reference):
+        ref_st = reference("stitcher")
+        ours = make_regions()
+        theirs = reference_regions(reference("bundle_adj"), ours)
         homs = np.stack([r.hom() for r in ours])
         rmin, rmax = render.proj_img_range_border((160, 200),
                                                   jnp.asarray(homs))
@@ -45,8 +45,10 @@ class TestUnits:
             npt.assert_allclose(np.asarray(rmin)[k], ref_min, atol=1e-4)
             npt.assert_allclose(np.asarray(rmax)[k], ref_max, atol=1e-4)
 
-    def test_resolution_matches_reference(self):
-        ours, theirs = make_regions()
+    def test_resolution_matches_reference(self, reference):
+        ref_st = reference("stitcher")
+        ours = make_regions()
+        theirs = reference_regions(reference("bundle_adj"), ours)
         homs = np.stack([r.hom() for r in ours])
         rmin, rmax = render.proj_img_range_border((160, 200),
                                                   jnp.asarray(homs))
@@ -61,14 +63,16 @@ class TestUnits:
         npt.assert_allclose(res_ours, res_ref, rtol=1e-5)
         npt.assert_allclose(range_ours[0], range_ref[0], atol=1e-4)
 
-    def test_hat_weights_match(self):
-        ours, _ = make_regions(n_views=1)
+    def test_hat_weights_match(self, reference):
+        ref_st = reference("stitcher")
+        ours = make_regions(n_views=1)
         rgba_ref = ref_st._add_weights(ours[0].img)
         rgba_ours = np.asarray(render.add_weights(
             jnp.asarray(ours[0].img[None].astype(np.float32) / 255)))[0]
         npt.assert_allclose(rgba_ours, rgba_ref, atol=1e-6)
 
-    def test_find_gains_matches_reference(self):
+    def test_find_gains_matches_reference(self, reference):
+        ref_st = reference("stitcher")
         size = 6
         overlaps = 100 + 10 * RNG.standard_normal((size, size))
         sizes = RNG.random((size, size)) + 10
@@ -77,22 +81,24 @@ class TestUnits:
 
 
 @pytest.mark.parametrize("blender,ref_blender", [
-    ("none", ref_st.no_blend),
-    ("linear", ref_st.linear_blend),
-    ("multiband", ref_st.multiband_blend),
+    ("none", "no_blend"),
+    ("linear", "linear_blend"),
+    ("multiband", "multiband_blend"),
 ])
 @pytest.mark.slow
 class TestEndToEndParity:
-    def test_mosaic_psnr(self, blender, ref_blender):
+    def test_mosaic_psnr(self, blender, ref_blender, reference):
         """Full render vs the CPU reference on identical regions: >=35 dB.
 
         (BASELINE.json asks >=40 dB on the full pipeline output; individual
         blender comparisons run at small scale where seam-tie and rounding
         differences weigh more heavily.)
         """
-        ours, theirs = make_regions()
+        ref_st = reference("stitcher")
+        ours = make_regions()
+        theirs = reference_regions(reference("bundle_adj"), ours)
         m_ours = render.stitch(ours, blender=blender)
-        m_ref = ref_st.stitch(theirs, blender=ref_blender)
+        m_ref = ref_st.stitch(theirs, blender=getattr(ref_st, ref_blender))
         assert m_ours.shape == m_ref.shape, (m_ours.shape, m_ref.shape)
         p = psnr(m_ours, m_ref)
         assert p >= 35.0, f"PSNR {p:.1f} dB"
@@ -109,7 +115,7 @@ class TestEqualize:
         (stitcher.py:56-58), so its gain estimates depend on heap garbage.
         Our implementation fills borders with zeros deterministically.)
         """
-        ours, _ = make_regions()
+        ours = make_regions()
         clean = render.stitch([PanoImage(r.img.copy(), r.rot, r.intr)
                                for r in ours], blender="linear")
         gains = [0.8, 1.1, 0.95, 1.2]
@@ -173,14 +179,14 @@ class TestWindowedOverlapStats:
                             rtol=1e-3)
 
     def test_matches_full_frame(self):
-        ours, _ = make_regions()
+        ours = make_regions()
         self._check(ours)
 
     def test_matches_full_frame_oblique_pair(self):
         """A near-degenerate pair: one view rolled+tilted so its warped
         quad is a long oblique sliver mostly outside the frame — the
         bbox clamping path the round-4 rewrite introduced."""
-        ours, _ = make_regions(n_views=4, overlap=0.5)
+        ours = make_regions(n_views=4, overlap=0.5)
         roll = np.array([[np.cos(0.5), -np.sin(0.5), 0],
                          [np.sin(0.5), np.cos(0.5), 0], [0, 0, 1.0]])
         tilt_ang = 0.35
@@ -204,7 +210,8 @@ class TestCrop:
             t, l, bm, r = a
             assert valid[t:bm + 1, l:r + 1].all()
 
-    def test_crop_parity_with_reference(self):
+    def test_crop_parity_with_reference(self, reference):
+        ref_st = reference("stitcher")
         valid = np.zeros((50, 80), bool)
         valid[5:45, 10:70] = True
         valid[20:30, 15:25] = False  # hole
@@ -215,7 +222,7 @@ class TestCrop:
         npt.assert_array_equal(ours, theirs)
 
     def test_stitch_crop_removes_borders(self):
-        ours, _ = make_regions()
+        ours = make_regions()
         m = render.stitch(ours, blender="linear", crop=True)
         # cropped mosaic should have no fully-black rows/columns at borders
         assert (m.sum(axis=(1, 2)) > 0).all()
@@ -232,13 +239,9 @@ class TestPeriodicCanvas:
             n_views=9, shape=(120, 160), seed=5, fov_deg=60.0,
             overlap=0.2)
         intr = np.diag([focal, focal, 1.0])
-        ours = [PanoImage((im * 255).astype(np.uint8), r.copy(),
+        return [PanoImage((im * 255).astype(np.uint8), r.copy(),
                           intr.copy())
                 for im, r in zip(imgs, rots)]
-        theirs = [ref_ba.Image((im * 255).astype(np.uint8), r.copy(),
-                               intr.copy())
-                  for im, r in zip(imgs, rots)]
-        return ours, theirs
 
     def test_fold_exactness_linear(self):
         """blend_linear with a periodic canvas == manual wrapped paste."""
@@ -320,10 +323,12 @@ class TestPeriodicCanvas:
         npt.assert_array_equal(got, expect)
 
     @pytest.mark.slow
-    def test_wrap_parity_with_reference(self):
+    def test_wrap_parity_with_reference(self, reference):
         """Ours (narrow periodic windows) vs the reference (canvas-wide
         patches) on a seam-crossing sweep: same canvas, >=35 dB."""
-        ours, theirs = self._wrap_regions()
+        ref_st = reference("stitcher")
+        ours = self._wrap_regions()
+        theirs = reference_regions(reference("bundle_adj"), ours)
         m_ours = render.stitch(ours, blender="multiband")
         m_ref = ref_st.stitch(theirs, blender=ref_st.multiband_blend)
         assert m_ours.shape == m_ref.shape, (m_ours.shape, m_ref.shape)
@@ -333,6 +338,6 @@ class TestPeriodicCanvas:
     @pytest.mark.slow
     def test_wrap_seam_has_no_gap(self):
         """Every canvas column a crossing view covers gets content."""
-        ours, _ = self._wrap_regions()
+        ours = self._wrap_regions()
         m = render.stitch(ours, blender="linear")
         assert (m.sum(axis=(0, 2)) > 0).all()

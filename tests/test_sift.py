@@ -15,10 +15,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # compile-heavy; fast subset: -m 'not slow'
 
-from pano360_tpu import synth
-from pano360_tpu import match as pm
-from pano360_tpu.features import sift as S
-from pano360_tpu.geometry import focal_from_hom
+from pano360 import synth
+from pano360 import match as pm
+from pano360.features import sift as S
+from pano360.geometry import focal_from_hom
 
 CFG = S.SiftConfig(max_kpts=1024)
 SHAPE = (180, 240)
@@ -116,51 +116,9 @@ class TestGaussianStackDirect:
             assert frac > 0.97, f"batch {b}: only {frac:.3f} matched"
 
 
-class TestGaussianStackPallas:
-    """The fused Pallas octave kernel (ops/pallas_gauss.py) must
-    reproduce the incremental chain to f32 rounding EVERYWHERE: it runs
-    the identical taps in the identical accumulation order, and
-    blurring a reflect101 extension with a symmetric kernel preserves
-    the reflection, so the chain's per-layer re-reflection equals the
-    kernel's reflect-once padding exactly."""
-
-    def test_matches_incremental_chain_interpret(self, pair):
-        from pano360_tpu.ops import pallas_gauss as PG
-        _, _, grays, _, _ = pair
-        base = S._base_image(jnp.asarray(grays), CFG)
-        taps = PG.chain_taps(CFG.sigma, CFG.n_layers)
-        assert PG.eligible(base.shape[1], base.shape[2], taps)
-        inc = np.asarray(S._gaussian_stack(base, CFG))
-        g, d = PG.octave_stack(base, taps, interpret=True)
-        npt.assert_allclose(np.asarray(g), inc, atol=3e-7)
-        npt.assert_allclose(np.asarray(d), inc[:, 1:] - inc[:, :-1],
-                            atol=6e-7)
-
-    def test_fused_score_matches_dense_path_interpret(self, pair):
-        """The kernel's fused extrema score must reproduce the XLA
-        dense path (_octave_candidates with score=None) bit-for-bit on
-        the kernel's own DoG: identical stencils, identical expression
-        order, identical f32 ops."""
-        from pano360_tpu.ops import pallas_gauss as PG
-        _, _, grays, _, _ = pair
-        base = S._base_image(jnp.asarray(grays), CFG)
-        taps = PG.chain_taps(CFG.sigma, CFG.n_layers)
-        score_cfg = (0.5 * CFG.contrast_thresh / CFG.n_layers,
-                     CFG.edge_thresh, CFG.img_border)
-        g, d, sc = PG.octave_stack(base, taps, score_cfg=score_cfg,
-                                   interpret=True)
-        cfg_exact = dataclasses.replace(CFG, cand_topk="exact")
-        cap = 512
-        ref = S._octave_candidates(d, cfg_exact, cap)
-        fused = S._octave_candidates(d, cfg_exact, cap, score=sc)
-        for a, b, name in zip(ref, fused, ("layer", "y", "x", "ok")):
-            npt.assert_array_equal(np.asarray(a), np.asarray(b),
-                                   err_msg=name)
-
-
 class TestPatchDtypeBf16:
-    """patch_dtype='bfloat16' (a measured opt-in; float32 is the
-    default after the real-texture A/B, benchmarks/AB_REAL.json)
+    """patch_dtype='bfloat16' (an opt-in; float32 is the default after
+    the real-texture A/B, benchmarks/ab_real_quality.py)
     quantizes the gradient patches and the one-hot sampling GEMMs
     (f32 accumulate); positions are untouched and descriptors must
     stay within a few ulps-of-bf16 of the f32 reference path."""

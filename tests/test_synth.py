@@ -12,10 +12,7 @@ pytestmark = pytest.mark.slow  # compile-heavy; fast subset: -m 'not slow'
 import numpy as np
 import numpy.testing as npt
 
-import refcompat  # noqa: F401  (cv2/numpy shims for the reference)
-import cv2
-
-from pano360_tpu import synth
+from pano360 import synth
 
 
 class TestSynth:
@@ -27,10 +24,10 @@ class TestSynth:
         assert rots.shape == (3, 3, 3)
         npt.assert_almost_equal(rots[0] @ rots[0].T, np.eye(3), decimal=10)
 
-    def test_reference_can_register(self):
+    def test_reference_can_register(self, reference):
         """Reference SIFT+RANSAC finds the true inter-view homography."""
-        import features as ref_feat
-        import bundle_adj as ref_ba
+        ref_feat = reference("features")
+        ref_ba = reference("bundle_adj")
 
         imgs, rots, focal = synth.make_views(n_views=2, shape=(240, 320),
                                              overlap=0.5, seed=1)

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from pano360_tpu import imageio, profiling, viz
+from pano360 import imageio, profiling, viz
 
 
 class TestViz:
@@ -90,7 +90,7 @@ class TestProfiling:
 
     def test_stage_timer_logs_reference_format(self, caplog):
         t = profiling.StageTimer()
-        with caplog.at_level(logging.INFO, logger="pano360_tpu.profiling"):
+        with caplog.at_level(logging.INFO, logger="pano360.profiling"):
             with t.stage("mosaic"):
                 pass
         assert any("mosaic, time:" in r.getMessage() for r in caplog.records)
